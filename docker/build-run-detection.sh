@@ -8,11 +8,11 @@ STREAM_URL="${STREAM_URL:?set STREAM_URL to the audio stream to monitor}"
 
 mkdir -p "$DATA_DIR/csv-out" "$DATA_DIR/spec-out"
 
-docker build -f docker/Dockerfile-Detection -t ms-tpu-detect .
-docker rm -f ms-tpu-detect 2>/dev/null || true
-docker run -d --name ms-tpu-detect \
+docker build -f docker/Dockerfile-Detection -t ms-detect .
+docker rm -f ms-detect 2>/dev/null || true
+docker run -d --name ms-detect \
     --restart=always \
     -e STREAM_URL="$STREAM_URL" \
     -v "$DATA_DIR":/data \
-    ms-tpu-detect
+    ms-detect
 echo "detection container running; ledger at $DATA_DIR/csv-out"

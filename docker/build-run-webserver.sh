@@ -11,11 +11,11 @@ if [[ ! -d "$DATA_DIR/csv-out" ]]; then
     exit 1
 fi
 
-docker build -f docker/Dockerfile-Webserver -t ms-tpu-web .
-docker rm -f ms-tpu-web 2>/dev/null || true
-docker run -d --name ms-tpu-web \
+docker build -f docker/Dockerfile-Webserver -t ms-web .
+docker rm -f ms-web 2>/dev/null || true
+docker run -d --name ms-web \
     --restart=always \
     -p 5000:5000 \
     -v "$DATA_DIR":/data \
-    ms-tpu-web
+    ms-web
 echo "dashboard on http://localhost:5000/"

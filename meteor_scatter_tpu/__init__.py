@@ -1,4 +1,4 @@
-"""meteor_scatter_tpu — a TPU-native meteor-scatter detection framework.
+"""meteor_scatter_tpu — a meteor-scatter detection framework for the GPU.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 th-nuernberg/meteor-scatter (reference mounted read-only at /root/reference):
@@ -11,8 +11,8 @@ forward-scatter radio meteor echo detection from SDR audio around the BRAMS
 * the CSV ledger + dashboard    (reference: app.py / plot.py / database.py)
 
 The compute path is pure JAX: framed band power is computed as a windowed
-DFT-selector *matmul* (MXU-native), spectrograms as batched XLA rFFTs, the
-sequential detectors as `lax.scan`, and multi-chip scaling via
+DFT-selector *matmul*, spectrograms as batched XLA rFFTs, the
+sequential detectors as `lax.scan`, and multi-device scaling via
 `jax.sharding.Mesh` + `shard_map` with collective halo exchange.
 """
 

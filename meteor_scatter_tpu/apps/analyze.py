@@ -1,4 +1,4 @@
-"""Batch WAV analyzer — TPU re-design of `dsp/src/main.py:207-806`
+"""Batch WAV analyzer — accelerator re-design of `dsp/src/main.py:207-806`
 (``proc_wav_file``) with the same outputs: console detections, Audacity
 pre-labels, event CSV, per-detection spectrogram images.
 
@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from meteor_scatter_tpu.config import AnalyzeConfig, BandPowerConfig
+from meteor_scatter_tpu.platform import enable_compile_cache
 from meteor_scatter_tpu.io.events_csv import (
     OutputDetection,
     events_to_detections,
@@ -152,16 +153,9 @@ def proc_wav_file(
     expected_sample_rate: Optional[int] = 6000,
     max_events: int = 4096,
     verbose: bool = True,
-    impl: str = "auto",
 ) -> AnalyzeResult:
     """Same signature family as the reference ``proc_wav_file``
-    (`main.py:207-229`), including the n_fft doubling (`main.py:353`).
-
-    ``impl`` selects the adaptive solver (:func:`detect_adaptive`):
-    "parallel" (XLA fixpoint), "fused" (Pallas kernel — the TPU auto
-    default), or "auto".  Exposed so the golden harness can validate the
-    *shipping default* directly against the reference (VERDICT r4 item 3),
-    not just transitively through solver-equality tests."""
+    (`main.py:207-229`), including the n_fft doubling (`main.py:353`)."""
     timer = PhaseTimer(log=False)
 
     with timer.phase("read_wav"):
@@ -197,7 +191,6 @@ def proc_wav_file(
                 threshold_freeze_after_detection_sec,
                 threshold_fixed_init_duration_sec,
                 cap=max_events,
-                impl=impl,
             )
         else:
             events, thr = detect_fixed(delta, threshold_std_factor, cap=max_events)
@@ -260,6 +253,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--out-spec-dir", default=None)
     p.add_argument("--plot-dir", default=None, help="write delta/threshold + histogram plots")
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     bw = args.bandwidth
     res = proc_wav_file(

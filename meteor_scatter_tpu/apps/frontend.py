@@ -23,6 +23,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 from meteor_scatter_tpu.ops.fir import channelize, channelize_iq
+from meteor_scatter_tpu.platform import enable_compile_cache
 
 
 TONE_FREQ = 1003.0  # audio-domain beacon tone (main.py:827)
@@ -68,11 +69,9 @@ def iq_frontend(
             x_im is None or isinstance(x_im, np.ndarray)
         )
         if host:
-            # host capture: pre-frame on the host (free numpy copy) so the
-            # device never pays the flat→framed tiled-layout relayout —
-            # measured 5.1 ms per 10 s × 2 MS/s capture, 64% of the whole
-            # chain (tools/iq_breakdown.py, round 5); bit-identical to the
-            # flat path (tests/test_fir.py::test_preframed_equals_flat_*)
+            # host capture: pre-frame on the host (a plain numpy copy);
+            # bit-identical to the flat path
+            # (tests/test_fir.py::test_preframed_equals_flat_*)
             from meteor_scatter_tpu.ops.fir import (
                 channel_bank_plan,
                 channelize_frames,
@@ -253,6 +252,7 @@ def main(argv=None) -> int:
                    help="complex I/Q capture; stations centered on 0 Hz "
                         "(negative offsets use the lower half of the span)")
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     if args.iq:
         half = args.stations // 2

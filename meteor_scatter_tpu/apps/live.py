@@ -1,4 +1,4 @@
-"""Streaming detector CLI — TPU re-design of `dsp/src/live/main.py` +
+"""Streaming detector CLI — accelerator re-design of `dsp/src/live/main.py` +
 `processor.py:14` (``wav_file_process``).
 
 Audio is consumed in chunks (bounded memory, like the reference's block
@@ -28,6 +28,7 @@ from meteor_scatter_tpu.config import DetectionConfig, SpecExportConfig, Visuali
 from meteor_scatter_tpu.io.spec_export import export_waterfall_window
 from meteor_scatter_tpu.io.wavio import read_wav
 from meteor_scatter_tpu.models.streaming import StreamConfig, stream_init, stream_process
+from meteor_scatter_tpu.platform import enable_compile_cache
 from meteor_scatter_tpu.ops.welch import welch_freqs
 
 
@@ -230,6 +231,7 @@ def main(argv=None) -> int:
                         "bit-exact vs the vmapped scan; built for wide "
                         "station batches)")
     args = p.parse_args(argv)
+    enable_compile_cache()
     if args.headless and (args.ui or args.spec_export_dir):
         p.error("--headless excludes --ui and --spec-export-dir (both need the PSD waterfall)")
 

@@ -218,7 +218,7 @@ def _svg_heatmap(mat: pd.DataFrame, title: str) -> str:
 
 
 def render_html_report(df: pd.DataFrame, out_path: str) -> str:
-    """Self-contained interactive HTML report — the TPU-build replacement for
+    """Self-contained interactive HTML report — this framework's replacement for
     the reference's plotly HTML export (`main_analyze.py:116-150`); zero
     external dependencies so it opens offline on any browser."""
     per_hour = detections_per_hour(df)

@@ -1,4 +1,4 @@
-"""Continuous segment monitor — TPU re-design of
+"""Continuous segment monitor — accelerator re-design of
 `meteor_detect_class/prime_detection.py` (the deployed 24/7 loop).
 
 Every 30 s audio segment flows: source → spectrogram + noise-floor cut →
@@ -34,6 +34,7 @@ from meteor_scatter_tpu.io.ledger import HourlyLedger
 from meteor_scatter_tpu.io.png import colorize, upscale_to, write_png
 from meteor_scatter_tpu.io.wavio import read_wav
 from meteor_scatter_tpu.models.image import detect_and_cluster_bursts
+from meteor_scatter_tpu.platform import enable_compile_cache
 from meteor_scatter_tpu.utils.timing import PhaseTimer
 
 
@@ -308,6 +309,7 @@ def main(argv=None) -> int:
                    help="with --start-time: simulated seconds per second of "
                         "audio (accelerated-day replay / soak testing)")
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     cfg = MonitorConfig(
         sample_rate=args.sample_rate,

@@ -31,7 +31,7 @@ SLIDE_CONTENT: List[Tuple[str, Sequence[str]]] = [
         (
             "forward scatter radio echoes",
             "brams beacon 49.97 mhz",
-            "tpu-native dsp pipeline",
+            "gpu dsp pipeline",
         ),
     ),
     (
@@ -64,7 +64,7 @@ def _render_slide(title: str, lines: Sequence[str]) -> np.ndarray:
     for line in lines:
         stamp_text(img, line, 64, y, scale=3, color=(200, 200, 200))
         y += 56
-    stamp_text(img, "meteor-scatter tpu", 48, H - 40, scale=2, color=(120, 120, 130))
+    stamp_text(img, "meteor-scatter", 48, H - 40, scale=2, color=(120, 120, 130))
     return img
 
 

@@ -12,7 +12,6 @@ compiled array programs with static shapes:
 from meteor_scatter_tpu.models.events import (  # noqa: F401
     Events,
     events_from_mask,
-    events_from_run_sums,
     merge_adjacent,
 )
 from meteor_scatter_tpu.models.fixed import detect_fixed  # noqa: F401

@@ -1,6 +1,6 @@
 """Adaptive-threshold detector with post-detection freeze.
 
-TPU-native re-design of `dsp/src/main.py:450-522`
+Accelerator re-design of `dsp/src/main.py:450-522`
 (``get_detections_adaptive``).  The reference's recurrence per block i:
 
 * first ``fixed_init`` seconds: threshold = global mean + k·global std
@@ -117,7 +117,7 @@ def adaptive_thresholds_fast(
     fixed_threshold_blocks: int,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Same semantics as :func:`adaptive_thresholds` (full-series case),
-    restructured for the TPU: the rolling window mean/std of *every* block
+    restructured for an accelerator: the rolling window mean/std of *every* block
     is precomputed in parallel with prefix sums, so the unavoidable
     sequential part — the freeze recurrence — carries only two scalars and
     costs ~10 flops per step instead of an O(window) reduction.
@@ -181,7 +181,7 @@ def adaptive_thresholds_parallel(
     """Sequential-scan-free adaptive detector via fixpoint iteration.
 
     The freeze recurrence is the only sequential part of the reference
-    algorithm, and on TPU a 432 000-step scan is latency-bound.  This solver
+    algorithm, and on an accelerator a 432 000-step scan is latency-bound.  This solver
     removes it: given a *candidate* set of above-threshold blocks, the
     entire threshold series is expressible in closed vector form —
 
@@ -270,96 +270,21 @@ def detect_adaptive(
     threshold_freeze_after_detection_sec: float = 20.0,
     threshold_fixed_init_duration_sec: float = 10.0,
     cap: int = 4096,
-    impl: str = "auto",
 ) -> Tuple[Events, jnp.ndarray]:
     """Full-series adaptive detection: (events, per-block thresholds).
 
     Block→seconds conversion (`main.py:503-505`): t_start = start·bd,
-    t_stop = (last+1)·bd, dB mean over [start, last+1).
-
-    ``impl``: "parallel" (XLA fixpoint solver), "fused" (Pallas kernel —
-    ~6x faster on TPU, same above-mask, thresholds within f32
-    reduction-order noise; series beyond VMEM run as exact sequential
-    chunks), or "auto" (fused on TPU, parallel on CPU).
+    t_stop = (last+1)·bd, dB mean over [start, last+1).  The solver is
+    :func:`adaptive_thresholds_parallel` on every platform, for any series
+    length.
     """
     bd = block_duration_sec
-    kw = dict(
+    thresholds, above = adaptive_thresholds_parallel(
+        delta,
         threshold_std_factor=threshold_std_factor,
         window_blocks=int(threshold_estimation_window_sec / bd),
         freeze_blocks_before=int(threshold_freeze_before_detection_sec / bd),
         freeze_blocks_after=int(threshold_freeze_after_detection_sec / bd),
         fixed_threshold_blocks=int(threshold_fixed_init_duration_sec / bd),
     )
-    if impl == "auto":
-        impl = "fused" if jax.default_backend() != "cpu" else "parallel"
-    if impl == "fused":
-        events, thresholds = _detect_adaptive_fused(
-            delta, cap, interpret=jax.default_backend() == "cpu", **kw
-        )
-    else:
-        thresholds, above = adaptive_thresholds_parallel(delta, **kw)
-        events = events_from_mask(above, delta, cap)
-    return events, thresholds
-
-
-def _detect_adaptive_fused(delta, cap, interpret, **kw):
-    """Fused-kernel detection for any series length: one kernel launch when
-    the series fits VMEM, otherwise exact chunked execution — each chunk
-    gets a ``window_blocks`` delta halo (its rolling-statistics history),
-    the carried freeze horizon / standing threshold, and the whole-series
-    fixed threshold; seam-spanning runs merge via ``merge_adjacent``."""
-    from meteor_scatter_tpu.models.events import (
-        events_from_run_sums,
-        merge_adjacent,
-        truncate_events,
-    )
-    from meteor_scatter_tpu.ops.pallas.adaptive_kernel import (
-        MAX_FUSED_BLOCKS,
-        adaptive_solver_fused,
-        adaptive_solver_fused_chunk,
-    )
-
-    n = delta.shape[0]
-    if n <= MAX_FUSED_BLOCKS:
-        thresholds, above, s_incl, csm = adaptive_solver_fused(
-            delta, interpret=interpret, **kw
-        )
-        return events_from_run_sums(s_incl, csm, above, cap), thresholds
-
-    k = kw["threshold_std_factor"]
-    w = kw["window_blocks"]
-    fa = kw["freeze_blocks_after"]
-    fb = kw["freeze_blocks_before"]
-    fixed_thr = jnp.mean(delta) + k * jnp.std(delta)  # whole-file, two-pass
-    chunk = MAX_FUSED_BLOCKS - w
-
-    events = None
-    thr_parts = []
-    freeze_in = jnp.asarray(-1, jnp.int32)
-    thr_in = fixed_thr
-    for c0 in range(0, n, chunk):
-        c1 = min(c0 + chunk, n)
-        halo = w if c0 else 0
-        thr_c, above_c, s_c, cs_c = adaptive_solver_fused_chunk(
-            jax.lax.slice_in_dim(delta, c0 - halo, c1),
-            c0,
-            freeze_in,
-            fixed_thr,
-            thr_in,
-            halo,
-            interpret=interpret,
-            **kw,
-        )
-        ev_c = events_from_run_sums(s_c, cs_c, above_c, cap)
-        events = ev_c if events is None else merge_adjacent(events, ev_c, c0)
-        thr_parts.append(thr_c)
-        ii = jnp.arange(c0, c1, dtype=jnp.int32)
-        f_c = jnp.where(
-            above_c, jnp.maximum(ii + fa, jnp.maximum(0, ii - fb)), -1
-        )
-        freeze_in = jnp.maximum(freeze_in, jnp.max(f_c))
-        thr_in = thr_c[-1]
-    # merge_adjacent grew the buffer to n_chunks*cap; restore the same
-    # fixed-cap contract as the single-launch path (count ≤ cap, overflow
-    # flags drops)
-    return truncate_events(events, cap), jnp.concatenate(thr_parts)
+    return events_from_mask(above, delta, cap), thresholds

@@ -83,45 +83,6 @@ def events_from_mask(above: jnp.ndarray, series: jnp.ndarray, cap: int) -> Event
     )
 
 
-def events_from_run_sums(
-    s_incl: jnp.ndarray, csm: jnp.ndarray, above: jnp.ndarray, cap: int
-) -> Events:
-    """Gather-only event extraction from run metadata.
-
-    ``s_incl[i]`` = number of runs started in ``above[:i+1]`` and ``csm[i]``
-    = prefix sum of the masked series — both computed inside the fused
-    Pallas solver, so no full-series cumsum/scatter runs in XLA here.  The
-    completed-runs count needs no extra scan (``e_incl = s_incl - above``),
-    and the j-th run's [start, stop) indices are exact integer searchsorted
-    lookups on those monotone counts; per-run sums are two gathers into the
-    prefix array.  Equal to :func:`events_from_mask` on start/stop/count
-    (means agree to f32 summation-order noise).
-    """
-    n = s_incl.shape[0]
-    dtype = csm.dtype
-    a_i32 = above.astype(jnp.int32)
-    e_incl = s_incl - a_i32  # runs fully completed by block i
-    num = s_incl[-1]
-
-    j = jnp.arange(cap, dtype=jnp.int32)
-    start = jnp.searchsorted(s_incl, j + 1, side="left").astype(jnp.int32)
-    stop = jnp.searchsorted(e_incl, j + 1, side="left").astype(jnp.int32)  # exclusive
-
-    cs0 = jnp.concatenate([jnp.zeros(1, dtype), csm])
-    sums = cs0[jnp.minimum(stop, n)] - cs0[jnp.minimum(start, n)]
-    cnt = (stop - start).astype(dtype)
-    valid = j < num
-    mean = jnp.where(valid, sums / jnp.maximum(cnt, 1), jnp.nan)
-
-    return Events(
-        start=jnp.where(valid, start, 0),
-        stop=jnp.where(valid, stop, 0),
-        db_mean=mean,
-        count=jnp.minimum(num, cap),
-        overflow=num > cap,
-    )
-
-
 def truncate_events(ev: Events, cap: int) -> Events:
     """Restore the fixed-cap contract after merges grew the buffer:
     capacity back to ``cap``, count ≤ cap, overflow set when events beyond

@@ -1,6 +1,6 @@
 """Fixed global-threshold detector.
 
-TPU-native re-design of `dsp/src/main.py:396-448` (``get_detections``):
+Accelerator re-design of `dsp/src/main.py:396-448` (``get_detections``):
 threshold = mean(delta) + k·std(delta) over the whole series (population
 std, ddof=0), runs of above-threshold blocks become detections.  Fully
 parallel — one reduction plus a vectorized run extraction, no scan.

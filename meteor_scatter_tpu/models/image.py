@@ -1,6 +1,6 @@
 """Spectrogram-domain burst detector + classifier — the "ML path".
 
-TPU-native re-conception of `meteor_detect_class/` (the deployed 24/7
+Accelerator re-conception of `meteor_detect_class/` (the deployed 24/7
 pipeline).  The reference renders a matplotlib spectrogram JPEG
 (`prime_detection.py:61-98`), finds ORB keypoints on the image, clusters
 them with DBSCAN (eps=30 px, min_samples=5), and classifies clusters with
@@ -192,11 +192,10 @@ def _cluster_core_labels(core: jnp.ndarray, spans) -> jnp.ndarray:
     :func:`_connected_components` but each round's neighborhood is the
     *whole eps ellipse* (one exact graph step ≈ eps pixels of spatial
     reach, vs 1 px for the 3×3 stencil), so convergence takes a handful
-    of rounds instead of O(cluster diameter).  Measured on-chip
-    (2026-08-21): the dilate-then-3×3-CC formulation spent ~26 ms/exec in
-    the while_loop on thin ellipse-dilated masks; this replaces it at a
-    few rounds of ~27 separable reduce_windows.  Returns int32 labels,
-    HW on non-core pixels."""
+    of rounds instead of O(cluster diameter): the dilate-then-3×3-CC
+    formulation walked thin ellipse-dilated masks one pixel per
+    while_loop round; this takes a few rounds of ~27 separable
+    reduce_windows.  Returns int32 labels, HW on non-core pixels."""
     h, w = core.shape
     hw = h * w
     ids = jnp.arange(hw, dtype=jnp.int32).reshape(h, w)
@@ -253,11 +252,14 @@ def corner_keypoints(
     h, w = gray.shape
 
     def conv2(x, kern):
+        # HIGHEST: a default-precision f32 convolution may run in TF32 on
+        # the GPU, and the corner scores rank keypoints
         return jax.lax.conv_general_dilated(
             x[None, None, :, :],
             jnp.asarray(kern, jnp.float32)[None, None, :, :],
             window_strides=(1, 1),
             padding="SAME",
+            precision=jax.lax.Precision.HIGHEST,
         )[0, 0]
 
     sobel_x = [[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]]
@@ -310,7 +312,9 @@ def _ellipse_kernel(radius_px: float, px_f: float, px_t: float) -> np.ndarray:
 
 def _conv_count(x: jnp.ndarray, kern: np.ndarray) -> jnp.ndarray:
     """SAME-padded 2-D convolution with a static 0/1 stencil (neighbor
-    counting / set dilation — XLA lowers it onto the MXU)."""
+    counting / set dilation).  Exact at any precision, TF32 included: the
+    operands are 0 or 1 and the sums are small integers, all exact in
+    TF32's 10-bit mantissa with float32 accumulation."""
     return jax.lax.conv_general_dilated(
         x.astype(jnp.float32)[None, None, :, :],
         jnp.asarray(kern, jnp.float32)[None, None, :, :],

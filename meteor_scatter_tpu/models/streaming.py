@@ -1,6 +1,6 @@
 """Streaming 3-state detector (Initialization → Detection → Tracking).
 
-TPU-native re-design of `dsp/src/live/backend/processor.py:176-510`.  The
+Accelerator re-design of `dsp/src/live/backend/processor.py:176-510`.  The
 reference walks blocks in a Python loop mutating dataclass states
 (`aggregates.py:4-24`); here the whole decision process is ONE flat carry
 struct advanced by ``lax.scan``, and the per-block spectral work (Welch PSD
@@ -47,6 +47,7 @@ import numpy as np
 
 import functools
 
+from meteor_scatter_tpu import platform
 from meteor_scatter_tpu.config import DetectionConfig
 from meteor_scatter_tpu.ops.welch import (
     band_sum_db,
@@ -305,15 +306,15 @@ def _ring_base_thresholds(ring, i0, on, w: int, k_std, dtype):
     w)``, so the trailing-window matrix is ``concat(previous-ring-in-
     absolute-order, chunk)`` windowed and per-row rotated.
 
-    The window matrix is built WITHOUT data-dependent gather indices:
-    XLA:TPU lowers a batched gather whose indices depend on a traced
-    ``i0`` to a serialized path measured at ~60 ms for 64 channels ×
-    3000 blocks — it was the shared floor under every streaming solver.
-    Instead: ``w`` *static* slices give the natural sliding windows
+    The window matrix is built WITHOUT data-dependent gather indices
+    (a batched gather whose indices depend on a traced ``i0`` was a
+    serialized path on the previous accelerator; ROADMAP C5 asks whether
+    the GPU needs this).  Instead: ``w`` *static* slices give the natural
+    sliding windows
     ``nat[i, m] = ext[i+m]``, and the slot-order rotation — whose amount
     ``(-(i0+i)) mod w`` depends on ``i`` only through the row class
-    ``c = i mod w`` — is applied by one (w, w, w) one-hot einsum on the
-    MXU.  A one-hot contraction copies each element exactly (1·x plus
+    ``c = i mod w`` — is applied by one (w, w, w) one-hot einsum.  A
+    one-hot contraction copies each element exactly (1·x plus
     0-terms), so the result is bit-identical to the gather it replaces
     for finite inputs; a raw ±inf level would turn into NaN over its whole
     window via 0·inf terms, so the front halves clamp ±inf to a finite
@@ -361,14 +362,11 @@ def _ring_base_thresholds(ring, i0, on, w: int, k_std, dtype):
 def _blocked(samples: jnp.ndarray, block: int) -> jnp.ndarray:
     """Shape audio as ``(..., n_blocks, block)``.
 
-    A batched capture entering jit as ``(C, S)`` carries TPU's (8, 128)
-    tiled layout on (C, S); the in-graph reshape to ``(..., n_blocks,
-    block)`` is then a full relayout of the whole capture — measured
-    13 ms per 64 ch × 600 s chunk, i.e. ~20x the front GEMM it feeds
-    (tools/stations_breakdown.py, 2026-08-21).  Arrays uploaded already
-    shaped ``(..., n_blocks, block)`` (ndim ≥ 3; a host-side numpy
-    reshape is free) keep a layout where the in-graph flatten for the
-    GEMM is a no-op, so throughput callers should pre-block.
+    Arrays uploaded already shaped ``(..., n_blocks, block)`` (ndim ≥ 3; a
+    host-side numpy reshape is free) pass through; a flat ``(..., S)``
+    capture is cut to whole blocks and reshaped in-graph.  The pre-blocked
+    form was a layout workaround for the previous accelerator; ROADMAP C4
+    asks whether the GPU needs it.
     """
     if samples.ndim >= 3 and samples.shape[-1] == block:
         return samples
@@ -414,8 +412,7 @@ def stream_front(cfg: DetectionConfig, samples: jnp.ndarray, fs: float):
     shape ``samples.shape[:-1] + (n_blocks,)``.
 
     Accepts audio either flat (``(..., S)``) or **pre-blocked**
-    (``(..., n_blocks, block)``, ndim ≥ 3) — see :func:`_blocked` for why
-    pre-blocking matters on TPU.
+    (``(..., n_blocks, block)``, ndim ≥ 3) — see :func:`_blocked`.
     """
     block = int(round(cfg.proc_block_sec * fs))
     x = _blocked(samples, block)
@@ -442,25 +439,22 @@ def stream_front(cfg: DetectionConfig, samples: jnp.ndarray, fs: float):
 @functools.lru_cache(maxsize=8)
 def _headless_projection(fs: float, nfft: int, nperseg: int, bands, block: int):
     # whole-block eigen-compressed quadratic form (prolate rank ~2·B·T_block
-    # per band, see block_band_matrix): the bins front was measured 100%
-    # matmul/framing-bound at 64 stations (tools/stations_breakdown.py
-    # 2026-08-21 — front 28.1 ms of the 28-30 ms pipeline with the framed
-    # 618-column projection).  Folding framing + segment mean into one
-    # (block, ~170) factor makes the front a single contiguous GEMM and
+    # per band, see block_band_matrix): folding framing + segment mean into
+    # one (block, ~170) factor makes the front a single contiguous GEMM and
     # moves band sums by ≲1e-9 dB — three orders below the f32 rounding the
     # bins front already carries.
     return block_band_matrix(fs, nfft, nperseg, block, bands)
 
 
 def stream_front_headless(cfg: DetectionConfig, samples: jnp.ndarray, fs: float):
-    """Bins-only front half: the three Welch band levels via one MXU matmul
+    """Bins-only front half: the three Welch band levels via one matmul
     on the raw blocks (:func:`block_band_matrix` — framing, window, DFT
     selection, and segment mean all folded into one eigen-compressed
     per-block factor) instead of zero-padded nfft-point PSDs whose other
     ~2000 bins detection never reads.
 
     Accepts audio flat (``(..., S)``) or pre-blocked (``(..., n_blocks,
-    block)``, ndim ≥ 3 — the TPU-throughput form, see :func:`_blocked`).
+    block)``, ndim ≥ 3, see :func:`_blocked`).
 
     Event decisions depend only on ``over_noise``; ``psd_db_mean`` feeds
     nothing but the visualization auto-gain (`processor.py:448-454`), so
@@ -744,11 +738,10 @@ def stream_scan_jump_batch(
 
     Reference semantics anchor: `dsp/src/live/backend/processor.py:444-510`.
 
-    Implementation notes for the vmapped-batch regime (measured on-chip at
-    64 channels, 2026-08-21): a vmapped ``while_loop`` costs ~0.4 ms per
-    lockstep iteration *in structure alone* (batched cond + carry
-    plumbing), and ``jnp.searchsorted`` lowers to a ~21 ms binary-search
-    loop at 64×3000 — so the body is merged (one shared W-wide window
+    Implementation notes for the vmapped-batch regime: a vmapped
+    ``while_loop`` pays per lockstep iteration *in structure alone*
+    (batched cond + carry plumbing), and ``jnp.searchsorted`` lowers to a
+    binary-search loop — so the body is merged (one shared W-wide window
     slice, branchless selects instead of ``lax.cond``, which executes both
     branches under vmap anyway), the event/episode buffers are packed into
     single arrays (17 carry leaves and 3 scatters per iteration instead of
@@ -925,7 +918,7 @@ def stream_scan_jump_batch(
     # − 1, computed as one scatter-add + cumsum (entries clip to the
     # [0, n_blocks] histogram range; −big → bin 0 counts for every block,
     # big → bin n_blocks counts for none) — integer-identical to
-    # searchsorted, without its pathological TPU lowering.
+    # searchsorted, without a binary-search loop.
     p = jnp.clip(ep_en + 1, 0, n_blocks)
     cnt_hist = jnp.zeros(n_blocks + 1, jnp.int32).at[p].add(1)
     eidx = jnp.cumsum(cnt_hist)[:n_blocks] - 1
@@ -958,45 +951,26 @@ def stream_scan_jump_batch(
     return new_state, events, thr_out
 
 
-def resolve_stream_auto(front: str, impl: str, n_channels: int = 1) -> Tuple[str, str]:
-    """Resolve ``front``/``impl`` ``"auto"`` selections (VERDICT r2 item 3,
-    mirroring ``detect_adaptive(impl="auto")``).
+def resolve_stream_auto(front: str, impl: str) -> Tuple[str, str]:
+    """Resolve ``front``/``impl`` ``"auto"`` selections to the platform's
+    defaults (:mod:`meteor_scatter_tpu.platform`): the reference welch
+    front and scan on the CPU, where the oracles pin them bit-exactly; the
+    fastest pair measured on the GPU whose event lists equal the scan's
+    (PERF.md).
 
-    On TPU the fast path is the default: the bins-only block-operator
-    matmul front plus the fused Pallas streaming-machine kernel
-    (``fused``, `ops/pallas/stream_kernel.py`) at EVERY batch width —
-    measured 2026-08-21 (identical event lists, tools/streaming_bench.py /
-    tools/stations_bench.py):
-
-    * single stream, 1 h of 4 kHz audio: welch:scan 117.5 ms, bins:scan
-      57.1, bins:jump 0.96, bins:hop 0.80, **bins:fused 0.34 ms
-      (~10.7 M× realtime)** — fused wins even at C=1, so the earlier
-      width-dependent hop/fused split is retired;
-    * 64 stations × 600 s: fused 2.72 ms / 56.5 G agg samples/s vs
-      vmapped scan 2.82 ms / 54.5 G.
-
-    Event lists are identical on every fixture, golden parity 3/3, the
-    decision-flip risk is bounded in PARITY.md (accept margins sit orders
-    of magnitude above the formulation deltas; boundary comparisons and
-    lock windows are shared/integer-exact), and fused is additionally
-    **bit-exact vs the vmapped scan** (tests/test_streaming_fused.py) — a
-    stronger contract than jump/hop's f32-noise one.  On CPU the
-    reference formulation stays the default: the fast paths' advantage is
-    TPU-specific and the welch front is what the oracles pin bit-exactly.
-
-    ``n_channels`` (the batch width the caller will run at) is kept for
-    callers that pass it, but no longer affects the choice — the C=1
-    measurement above made the width distinction moot.
+    The decision-flip risk of the fast formulations is bounded in
+    PARITY.md (accept margins sit orders of magnitude above the
+    formulation deltas; boundary comparisons and lock windows are
+    shared/integer-exact).
 
     Callers that need the PSD waterfall (live UI, spec export) must pass
     ``front="welch"`` explicitly — the bins front computes only the three
     band levels.
     """
-    on_tpu = jax.default_backend() != "cpu"
     if front == "auto":
-        front = "bins" if on_tpu else "welch"
+        front = platform.stream_front()
     if impl == "auto":
-        impl = "fused" if on_tpu else "scan"
+        impl = platform.stream_solver()
     return front, impl
 
 
@@ -1016,7 +990,7 @@ def stream_process(
     per-block series the live UI plots (over_noise, threshold, band dBs,
     psd waterfall — Welch front only).
 
-    The scan is restructured for TPU relative to :func:`stream_step` (which
+    The scan is restructured for the accelerator relative to :func:`stream_step` (which
     stays as the reference formulation): the O(avg_win) rolling-window
     reduction is hoisted out as a batched gather+sum with the identical
     summation order, and event emission becomes per-step *outputs*
@@ -1024,8 +998,8 @@ def stream_process(
     stream_step scan is pinned in tests.
 
     ``front``/``impl`` default to ``"auto"`` (:func:`resolve_stream_auto`):
-    the bins front + fused Pallas streaming-machine kernel on TPU, the
-    reference-formulation welch:scan on CPU.  ``impl="jump"``/``"hop"``
+    the platform's defaults (`meteor_scatter_tpu/platform.py`) — the
+    reference-formulation welch:scan on the CPU.  ``impl="jump"``/``"hop"``
     select the episode-jump solvers explicitly — bit-exact event
     boundaries and thresholds, dB statistics to f32 reduction order; see
     their docstrings and PARITY.md for the tie-risk accounting
@@ -1193,19 +1167,17 @@ def stream_scan(
         state.tr_min, state.tr_max, state.init_sum, state.init_count,
         state.psd_db_mean_from_init, state.block_idx,
     )
-    # unroll amortizes the TPU sequential-loop overhead (~µs/step) over 16
-    # steps of pure scalar work; semantics are unchanged.  CPU keeps
-    # unroll=1 — the 16x body inflates this box's compile time far more
-    # than it saves at test scale.
+    # the unroll factor is a per-platform measurement (platform.py);
+    # semantics are unchanged by it
     if unroll is None:
-        unroll = 16 if jax.default_backend() != "cpu" else 1
+        unroll = platform.scan_unroll()
     carry, outs = jax.lax.scan(
         body, carry0, (over_noise, psd_db_mean, base_thr), unroll=unroll
     )
     (thresholds, emit, e_start, e_stop, e_dur, e_min, e_max, e_mean, e_std) = outs
 
     # compact emitted events into the fixed-cap buffer (order preserved);
-    # scatter-free MXU compaction shared with the fused kernel path — see
+    # scatter-free matmul compaction shared with the fused kernel path — see
     # :func:`_compact_scan_outs` for why scatter/searchsorted are avoided
     events = _compact_scan_outs(
         scfg, n_blocks,
@@ -1241,12 +1213,12 @@ def _compact_scan_outs(scfg: StreamConfig, n_blocks: int, outs) -> StreamEvents:
     """Turn one channel's per-step scan outputs into the fixed-cap event
     buffer: the m-th emitting block lands in slot m.
 
-    The slot→block map is recovered *scatter-free*: XLA:TPU lowers a
-    3000-update scatter to a serialized loop (measured ~60 ms vmapped at
-    64 channels — it was the hidden floor under every solver), so instead
-    the slot index m = c[i]−1 of each emitting block is split into digits
-    (hi, lo) = (m // 32, m % 32) and ``slot_c[m] = Σ_i E_hi[i,hi] ·
-    E_lo[i,lo] · i`` becomes one (A, n)·(n, 32) matmul on the MXU.  At
+    The slot→block map is recovered *scatter-free* (a large scatter was a
+    serialized loop on the previous accelerator; ROADMAP C5 asks whether a
+    cumsum-plus-scatter is as fast on the GPU): the slot index m = c[i]−1
+    of each emitting block is split into digits (hi, lo) = (m // 32,
+    m % 32) and ``slot_c[m] = Σ_i E_hi[i,hi] · E_lo[i,lo] · i`` becomes one
+    (A, n)·(n, 32) matmul.  At
     most one term per slot is nonzero and block indices are < 2²⁴, so the
     f32 contraction is integer-exact and equal to the scatter it
     replaces."""
@@ -1296,49 +1268,30 @@ def stream_scan_fused_batch(
     state: StreamState,        # batched: every leaf has leading dim (C,)
     over_noise: jnp.ndarray,   # (C, n_blocks)
     psd_db_mean: jnp.ndarray,  # (C, n_blocks)
-    interpret: bool | None = None,
+    **kernel_kw,
 ) -> Tuple[StreamState, StreamEvents, jnp.ndarray]:
     """Batched fused-kernel form of :func:`stream_scan` — the wide-station
-    solver (BASELINE config 5).  Channels ride the 128 VPU lanes of one
-    Pallas kernel (`ops/pallas/stream_kernel.py`), so the whole batch pays
-    one sequential pass instead of 64 interleaved ones; channel groups
-    beyond 128 run as successive kernel calls.
+    solver (BASELINE config 5).  One Pallas kernel
+    (`ops/pallas/stream_kernel.py`) walks the whole block series of every
+    channel group in one launch, the groups in parallel.  ``kernel_kw``
+    (``max_group``, ``tile``) passes launch shape through to
+    :func:`~meteor_scatter_tpu.ops.pallas.stream_kernel.stream_machine_fused`.
 
-    Contract: bit-exact vs ``vmap(stream_scan)`` — same base-threshold
-    prologue, an op-for-op mirror of the scan body, and the identical
-    compaction epilogue; pinned in ``tests/test_streaming_fused.py``.
-    (The *unbatched* ``stream_scan`` additionally differs by XLA FMA
-    contraction of ``i·bs − t0`` in the reported ``duration`` and one ULP
-    of ``tr_sumsq``/``db_std`` — decisions are integer/comparison-exact,
-    same caveat class as :func:`stream_scan_jump`.)
+    Contract: bit-exact vs ``vmap(stream_scan)`` in interpret mode — same
+    base-threshold prologue, an op-for-op mirror of the scan body, and the
+    identical compaction epilogue; pinned in
+    ``tests/test_streaming_fused.py``.  (The *unbatched* ``stream_scan``
+    additionally differs by FMA contraction of ``i·bs − t0`` in the
+    reported ``duration`` and one ULP of ``tr_sumsq``/``db_std`` —
+    decisions are integer/comparison-exact, same caveat class as
+    :func:`stream_scan_jump`.)
 
-    ``interpret=None`` auto-selects interpreter mode off-TPU.
+    The kernel is compiled on the GPU and interpreted on the CPU
+    (:func:`meteor_scatter_tpu.platform.interpret_kernels`).
     """
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    from meteor_scatter_tpu.ops.pallas.stream_kernel import (
-        LANES as _LANES,
-        stream_machine_fused,
-    )
+    from meteor_scatter_tpu.ops.pallas.stream_kernel import stream_machine_fused
 
     C, n_blocks = over_noise.shape
-    if C > _LANES:
-        parts = [
-            stream_scan_fused_batch(
-                scfg,
-                jax.tree_util.tree_map(lambda a: a[g : g + _LANES], state),
-                over_noise[g : g + _LANES],
-                psd_db_mean[g : g + _LANES],
-                interpret,
-            )
-            for g in range(0, C, _LANES)
-        ]
-        return (
-            jax.tree_util.tree_map(lambda *xs: jnp.concatenate(xs), *[p[0] for p in parts]),
-            jax.tree_util.tree_map(lambda *xs: jnp.concatenate(xs), *[p[1] for p in parts]),
-            jnp.concatenate([p[2] for p in parts]),
-        )
-
     dtype = over_noise.dtype
     w = scfg.avg_win
     lock_tail = lock_tail_blocks(scfg.after_wait_sec, scfg.block_sec)
@@ -1368,7 +1321,8 @@ def stream_scan_fused_batch(
         min_mean_db=float(scfg.min_mean_db),
         min_dur_b=int(min_dur_b),
         lock_tail=int(lock_tail),
-        interpret=interpret,
+        interpret=platform.interpret_kernels(),
+        **kernel_kw,
     )
     thresholds = ys[0].T  # (C, n_blocks)
     outs_c = tuple(y.T for y in ys[1:])
@@ -1396,7 +1350,6 @@ def stream_scan_fused(
     state: StreamState,
     over_noise: jnp.ndarray,   # (n_blocks,)
     psd_db_mean: jnp.ndarray,  # (n_blocks,)
-    interpret: bool | None = None,
 ) -> Tuple[StreamState, StreamEvents, jnp.ndarray]:
     """Single-series fused-kernel form of :func:`stream_scan` (same
     (new_state, events, thresholds) contract) — a C=1 slice of
@@ -1404,7 +1357,7 @@ def stream_scan_fused(
     contract."""
     state_b = jax.tree_util.tree_map(lambda a: a[None], state)
     st, ev, thr = stream_scan_fused_batch(
-        scfg, state_b, over_noise[None], psd_db_mean[None], interpret
+        scfg, state_b, over_noise[None], psd_db_mean[None]
     )
     return (
         jax.tree_util.tree_map(lambda a: a[0], st),

@@ -1,5 +1,5 @@
 """Core DSP ops: windows, framing, band-power projection, Welch PSD,
-spectrograms, FIR/polyphase filtering, and their Pallas TPU kernels."""
+spectrograms, FIR/polyphase filtering, and the Pallas streaming kernel."""
 
 from meteor_scatter_tpu.ops.window import hann_symmetric, hann_periodic, get_window  # noqa: F401
 from meteor_scatter_tpu.ops.framing import frame_signal, num_frames  # noqa: F401

@@ -1,4 +1,4 @@
-"""Band power extraction — the detection hot loop, recast for the MXU.
+"""Band power extraction — the detection hot loop, recast as one matmul.
 
 The reference computes, per 0.2 s block (`dsp/src/main.py:376-388`):
 
@@ -7,14 +7,14 @@ The reference computes, per 0.2 s block (`dsp/src/main.py:376-388`):
     noise_db = 10*log10( sum_{k in noise} |X_k|^2 + 1e-12 )
 
 Only a handful of frequency bins (BRAMS: ±10 Hz around 1003 Hz and 700 Hz →
-~4 bins each) out of the full rfft ever matter.  On TPU it is therefore
+~4 bins each) out of the full rfft ever matter.  On an accelerator it is therefore
 wasteful to compute an FFT at all: writing the needed bins as inner products
 with windowed cos/sin rows turns the whole hot loop into ONE matmul
 
     frames[num_blocks, L] @ M[L, 2K]   ->  square -> per-band row sums
 
-which maps directly onto the 128×128 systolic array, streams the audio from
-HBM exactly once, and never materializes a spectrum.  (The full-spectrum
+which streams the audio from device memory exactly once and never
+materializes a spectrum.  (The full-spectrum
 path for waterfalls lives in :mod:`meteor_scatter_tpu.ops.spectrogram`.)
 
 numpy-exactness notes (all encoded in :func:`band_projection_matrix`):
@@ -97,8 +97,9 @@ def band_power_db(
     projection: (L, 2K) matrix from :func:`band_projection_matrix`.
 
     Returns one ``(..., num_frames)`` dB array per band.  ``precision`` is
-    HIGHEST by default so the f32 matmul on TPU does not downcast to
-    bf16 (detection thresholds sit 4σ out; keep the numerics tight).
+    HIGHEST by default so the f32 matmul does not run in reduced precision
+    (TF32 on the GPU; detection thresholds sit 4σ out — keep the numerics
+    tight).
     """
     L = projection.shape[0]
     p = jnp.dot(frames[..., :L], projection, precision=precision)

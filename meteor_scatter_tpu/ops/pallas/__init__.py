@@ -1,10 +1,1 @@
-"""Pallas TPU kernels for the hot ops."""
-
-from meteor_scatter_tpu.ops.pallas.adaptive_kernel import (  # noqa: F401
-    adaptive_solver_fused,
-    adaptive_thresholds_fused,
-)
-from meteor_scatter_tpu.ops.pallas.bandpower_kernel import (  # noqa: F401
-    band_power_db_pallas,
-    fused_bandpower_delta,
-)
+"""Hand-written Pallas kernels (Triton route) for the GPU hot path."""

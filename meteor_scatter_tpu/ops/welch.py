@@ -24,6 +24,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -89,7 +90,7 @@ def welch_band_matrix(
     squared norm of a handful of DFT rows.  Those rows (window, constant
     detrend, density scaling and one-sided doubling all folded in) become
     columns of one (nperseg, 2·total_bins) matrix, so the whole front half
-    is a single MXU matmul on the raw segments instead of zero-padded
+    is a single matmul on the raw segments instead of zero-padded
     nfft-point FFTs producing nfft/2+1 bins that are then discarded.
 
     Returns ``(P, slices)``: ``seg @ P`` squared and summed over
@@ -167,8 +168,7 @@ def block_band_matrix(
     0.2 s block — so its float64 eigen-factor ``U_r·√λ_r`` turns the whole
     front (framing + window + DFT selection + segment mean) into a single
     contiguous (..., block) @ (block, K) GEMM: no overlapped frame tensor,
-    no per-segment batch of M=2-3 GEMMs (both measured as the dominant
-    64-station pipeline cost, tools/stations_breakdown.py 2026-08-21).
+    no per-segment batch of M=2-3 GEMMs.
 
     Returns ``(P, slices, nseg)``: ``‖x_block @ P[:, a:b]‖² / nseg`` is
     band b's Welch level, accurate to the truncated eigenmass (≤ rtol·λmax
@@ -218,7 +218,11 @@ def block_band_sums_db(
     order."""
     xf = x3.astype(jnp.float32)
     lead = xf.shape[:-1]
-    proj = xf.reshape(-1, xf.shape[-1]) @ projection
+    # HIGHEST: a default-precision f32 GEMM may run in TF32 on the GPU
+    # (about three decimal digits), and these band levels decide events
+    proj = jnp.matmul(
+        xf.reshape(-1, xf.shape[-1]), projection, precision=jax.lax.Precision.HIGHEST
+    )
     pw = jnp.square(proj).reshape(lead + (projection.shape[-1],))
     return [
         10.0 * jnp.log10(jnp.sum(pw[..., a:b], axis=-1) / nseg)
@@ -244,9 +248,7 @@ def welch_band_sums_db(
     frame tensor — ~1.6x the input, and several copies through
     ``frame_signal``'s pad/stack/interleave — is never materialized.  The
     mean is segment-order-free, so this changes only f32 summation order
-    (the contract this function already carries); measured on-chip it was
-    the 64-station streaming front's dominant cost
-    (tools/stations_breakdown.py, 2026-08-21)."""
+    (the contract this function already carries)."""
     if noverlap is None:
         noverlap = nperseg // 2
     hop = nperseg - noverlap
@@ -264,17 +266,18 @@ def welch_band_sums_db(
             seg = xf[..., off : off + nf_r * nperseg].reshape(
                 xf.shape[:-1] + (nf_r, nperseg)
             )
-            # NOTE: keep the matmul batched over (..., nf_r) — flattening
-            # the strided slice view to an explicit 2-D GEMM forces a
-            # full-frame-tensor copy (measured slower on-chip).  For the
-            # per-block streaming front, `block_band_matrix` removes the
-            # segment dimension entirely and is the fast path.
-            pw = jnp.square(seg @ projection)
+            # for the per-block streaming front, `block_band_matrix`
+            # removes the segment dimension entirely and is the fast path
+            pw = jnp.square(
+                jnp.matmul(seg, projection, precision=jax.lax.Precision.HIGHEST)
+            )
             s_r = [jnp.sum(pw[..., a:b], axis=(-2, -1)) for a, b in slices]
             sums = s_r if sums is None else [s + t for s, t in zip(sums, s_r)]
         return [10.0 * jnp.log10(s / nseg) for s in sums]
     seg = frame_signal(xf, nperseg, hop)  # (..., nseg, nperseg)
-    proj = seg @ projection  # (..., nseg, 2*total)
+    proj = jnp.matmul(  # (..., nseg, 2*total)
+        seg, projection, precision=jax.lax.Precision.HIGHEST
+    )
     pw = proj * proj
     out = []
     for a, b in slices:

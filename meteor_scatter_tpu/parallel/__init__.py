@@ -8,7 +8,7 @@ configs 3-5:
   data parallel;
 * ``time`` mesh axis — one long stream split into contiguous sample
   ranges; STFT overlap and FIR warm-up tails cross shard seams and are
-  exchanged as halos via ``lax.ppermute`` over ICI;
+  exchanged as halos via ``lax.ppermute`` between neighbouring shards;
 * detections are reduced per shard and merged at seams so the sharded
   event list equals the unsharded one.
 """

@@ -59,8 +59,9 @@ class HostShard:
 
 def host_shard_info(n_stations: int) -> HostShard:
     """Contiguous station assignment across hosts (stations are the
-    embarrassingly parallel axis; time sharding stays within a host's ICI
-    domain so halos never cross DCN unless stations < hosts)."""
+    embarrassingly parallel axis; time sharding stays among one host's
+    cards, joined all to all by NVLink, so halos never cross the slower
+    host-to-host network unless stations < hosts)."""
     import jax
 
     pid = jax.process_index()

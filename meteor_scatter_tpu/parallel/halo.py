@@ -4,8 +4,8 @@ This is the distributed form of the reference's STFT overlap
 (``noverlap = NFFT//2``, prime_detection.py:67 / main.py:53) and of FIR
 warm-up tails: a time shard needs the trailing samples of its left
 neighbor (and/or the leading samples of its right neighbor) to compute its
-boundary frames exactly.  ``lax.ppermute`` rides ICI between adjacent
-devices — no all-to-all, no host round trip.
+boundary frames exactly.  ``lax.ppermute`` sends each halo straight to
+the neighbouring device — no all-to-all, no host round trip.
 """
 
 from __future__ import annotations

@@ -18,9 +18,11 @@ def make_mesh(
     devices: Optional[Sequence] = None,
 ) -> Mesh:
     """Build a (station, time) mesh.  With ``n_time=None`` the time axis
-    absorbs all remaining devices.  Stations ride the outer axis so that
-    time-shard halos (the chatty neighbor exchange) map to adjacent
-    devices on ICI while stations never communicate until event merge."""
+    absorbs all remaining devices.  The shape follows the algorithm alone:
+    stations never communicate until event merge, and time shards trade
+    halos with their neighbours only.  The four cards of one host are
+    joined all to all by NVLink, so any device order gives every pair the
+    same link and no placement is preferred."""
     devices = list(devices if devices is not None else jax.devices())
     if n_time is None:
         if len(devices) % n_station:

@@ -429,14 +429,14 @@ def sharded_stream_process(
     ``impl="fused"`` runs the batch-native fused Pallas streaming-machine
     kernel (`ops/pallas/stream_kernel.py`) on each device's *local* station
     group — the bins/welch front stays sharded over (station, time), the
-    block-rate series is all-gathered over time as usual, and the kernel
-    walks all local channels in one sequential pass on the VPU lanes
+    block-rate series is all-gathered over time as usual, and one kernel
+    launch walks every local channel's series
     (bit-exact vs the vmapped scan, tests/test_streaming_fused.py).
-    ``impl="auto"`` resolves by batch width (``resolve_stream_auto`` with
-    ``n_channels=C``): fused for wide station batches on TPU.
+    ``front``/``impl="auto"`` resolve to the platform's defaults
+    (``resolve_stream_auto``).
     ``front="bins"`` selects the headless bins-only front half
     (:func:`meteor_scatter_tpu.models.streaming.stream_front_headless` —
-    one MXU matmul per shard instead of full Welch PSDs); no psd waterfall
+    one matmul per shard instead of full Welch PSDs); no psd waterfall
     is produced and the same opt-in caveats apply as on the single-device
     path.
 
@@ -462,9 +462,8 @@ def sharded_stream_process(
     n_time = mesh.shape[TIME_AXIS]
     preblocked = x.ndim == 3
     if preblocked:
-        # (C, n_blocks, block) — the TPU-throughput form (see
-        # models/streaming.py::_blocked: a flat capture pays a full
-        # tiled-layout relayout in-graph); the time axis shards blocks.
+        # (C, n_blocks, block), see models/streaming.py::_blocked; the
+        # time axis shards blocks.
         n_ch, B = x.shape[:2]
         if x.shape[-1] != block:
             raise ValueError(
@@ -482,7 +481,7 @@ def sharded_stream_process(
                 f"samples per time shard ({S}/{n_time}) must be a whole "
                 f"number of {block}-sample blocks"
             )
-    front, impl = resolve_stream_auto(front, impl, n_channels=n_ch)
+    front, impl = resolve_stream_auto(front, impl)
     scfg = StreamConfig.from_config(cfg)
     if state is None:
         state = stream_init_batch(scfg, n_ch)
@@ -672,14 +671,12 @@ def sharded_channelize_iq_frames(
     decim: int,
     numtaps: int = 257,
 ):
-    """Pre-framed pod form of :func:`sharded_channelize_iq` (round 5): the
+    """Pre-framed multi-device form of :func:`sharded_channelize_iq`: the
     host bakes per-shard polyphase frames *with the halo rows included*
     (`meteor_scatter_tpu.ops.fir.frame_capture_sharded_host`), so each time
-    shard pays neither the in-graph flat→framed relayout — 5.1 ms per
-    10 s × 2 MS/s capture on the single-chip path, the dominant cost
-    `tools/iq_breakdown.py` attributed — nor any ppermute halo exchange
-    (the a_cols−1 duplicated frame rows per shard replace it at ~0.01% of
-    the capture in host memcpy).  Bit-identical to the flat form: the
+    shard pays neither the in-graph flat→framed reshape nor any ppermute
+    halo exchange (the a_cols−1 duplicated frame rows per shard replace it
+    at ~0.01% of the capture in host memcpy).  Bit-identical to the flat form: the
     local frames and tables are the same values, so `_bank_apply` and the
     per-shard rotation see identical inputs
     (pinned in ``tests/test_parallel.py``).

@@ -216,8 +216,7 @@ class TestBandMatrixCompression:
     def test_compressed_band_sums_match_full(self):
         """Eigen-compressed projection (prolate rank ~2BT per band) must
         reproduce every band sum to far below f32 rounding while cutting
-        the matmul width severalfold (the bins front was measured 100%
-        matmul-bound at 64 stations; tools/stations_breakdown.py)."""
+        the matmul width severalfold."""
         from meteor_scatter_tpu.ops.welch import welch_band_matrix
 
         fs, nfft, nperseg = 4000, 4096, 256

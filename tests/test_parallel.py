@@ -373,7 +373,7 @@ class TestShardedStreaming:
 
     @pytest.mark.parametrize("front,impl", [("bins", "fused"), ("welch", "scan")])
     def test_preblocked_equals_flat(self, mesh, front, impl):
-        # (C, n_blocks, block) pre-blocked input (the TPU-throughput form,
+        # (C, n_blocks, block) pre-blocked input (the throughput form,
         # models/streaming.py::_blocked) shards blocks over the time axis
         # and must be bit-identical to the flat (C, S) form — for the fast
         # path AND the welch/waterfall path (whose psd output spec must

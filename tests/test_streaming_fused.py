@@ -9,12 +9,14 @@ Contract (`models/streaming.py::stream_scan_fused_batch`):
   (and one ULP of ``tr_sumsq``/``db_std``) — decisions (boundaries, lock
   windows, counts, accepts) stay comparison/integer-exact.
 
-Kernel: `ops/pallas/stream_kernel.py` (interpret mode on CPU; the grid
-walks 512-block time chunks with the machine state carried in VMEM
-scratch, so multi-chunk series exercise the revolver carry).
+Kernel: `ops/pallas/stream_kernel.py`, a Triton-route kernel run here in
+interpret mode: one program per power-of-two channel group, a time loop
+over tiles of rows inside the program, channels and time padded to whole
+groups and tiles.
 """
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -39,7 +41,10 @@ from tests.test_streaming_jump import (
 )
 
 
-def assert_bitexact_vs_vmapped_scan(scfg, C, n, seed, bursts=()):
+def assert_bitexact_vs_vmapped_scan(scfg, C, n, seed, bursts=(), close=()):
+    """``close`` names event/state fields compared to 1e-6 instead of
+    bit for bit: at C=1 XLA compiles the vmapped scan like the unbatched
+    one and may FMA-contract its duration (see the module docstring)."""
     ons, pms = [], []
     for c in range(C):
         on, pm = make_series(n, seed + c, bursts)
@@ -51,18 +56,15 @@ def assert_bitexact_vs_vmapped_scan(scfg, C, n, seed, bursts=()):
     st_s, ev_s, thr_s = jax.vmap(lambda s, o, p: stream_scan(scfg, s, o, p))(
         st0, on, pm
     )
-    st_f, ev_f, thr_f = stream_scan_fused_batch(scfg, st0, on, pm, interpret=True)
+    st_f, ev_f, thr_f = stream_scan_fused_batch(scfg, st0, on, pm)
     np.testing.assert_array_equal(np.asarray(thr_s), np.asarray(thr_f))
-    for f in StreamEvents._fields:
-        np.testing.assert_array_equal(
-            np.asarray(getattr(ev_s, f)), np.asarray(getattr(ev_f, f)),
-            err_msg=f"events.{f}",
-        )
-    for f in StreamState._fields:
-        np.testing.assert_array_equal(
-            np.asarray(getattr(st_s, f)), np.asarray(getattr(st_f, f)),
-            err_msg=f"state.{f}",
-        )
+    for name, a, b in [("events", ev_s, ev_f), ("state", st_s, st_f)]:
+        for f in type(a)._fields:
+            x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+            if f in close:
+                np.testing.assert_allclose(x, y, rtol=1e-6, err_msg=f"{name}.{f}")
+            else:
+                np.testing.assert_array_equal(x, y, err_msg=f"{name}.{f}")
     return ev_f
 
 
@@ -80,7 +82,8 @@ class TestFusedVsVmappedScan:
         assert np.asarray(ev.count).min() >= 1
 
     def test_multi_chunk_grid(self):
-        # > 512 blocks crosses the kernel's CHUNK revolver boundary twice
+        # a long series: many tiles of the in-kernel time loop, bursts
+        # across tile edges
         scfg = default_cfg()
         assert_bitexact_vs_vmapped_scan(
             scfg, 2, 1300, seed=2, bursts=((500, 530, 8.0), (1000, 1030, 8.0))
@@ -111,7 +114,7 @@ class TestFusedSingleStream:
         on, pm = make_series(900, 7, bursts=((150, 180, 8.0), (500, 540, 9.0)))
         st_s, ev_s, thr_s = stream_scan(scfg, stream_init(scfg), on, pm)
         st_f, ev_f, thr_f = stream_scan_fused(
-            scfg, stream_init(scfg), on, pm, interpret=True
+            scfg, stream_init(scfg), on, pm
         )
         np.testing.assert_array_equal(np.asarray(thr_s), np.asarray(thr_f))
         assert int(ev_s.count) == int(ev_f.count)
@@ -143,13 +146,13 @@ class TestFusedSingleStream:
         scfg = default_cfg()
         on, pm = make_series(900, 9, bursts=((280, 310, 8.0), (600, 640, 9.0)))
         st_w, ev_w, thr_w = stream_scan_fused(
-            scfg, stream_init(scfg), on, pm, interpret=True
+            scfg, stream_init(scfg), on, pm
         )
         st = stream_init(scfg)
         thrs = []
         counts = 0
         for sl in (slice(0, 300), slice(300, 600), slice(600, 900)):
-            st, ev, thr = stream_scan_fused(scfg, st, on[sl], pm[sl], interpret=True)
+            st, ev, thr = stream_scan_fused(scfg, st, on[sl], pm[sl])
             thrs.append(np.asarray(thr))
             counts += int(ev.count)
         for f in StreamState._fields:
@@ -204,9 +207,67 @@ class TestFusedManyChannels:
         st_s, ev_s, thr_s = jax.vmap(lambda s, o, p: stream_scan(scfg, s, o, p))(
             st0, on, pm
         )
-        st_f, ev_f, thr_f = stream_scan_fused_batch(scfg, st0, on, pm, interpret=True)
+        st_f, ev_f, thr_f = stream_scan_fused_batch(scfg, st0, on, pm)
         np.testing.assert_array_equal(np.asarray(thr_s), np.asarray(thr_f))
         np.testing.assert_array_equal(np.asarray(ev_s.count), np.asarray(ev_f.count))
         np.testing.assert_array_equal(
             np.asarray(ev_s.time_start), np.asarray(ev_f.time_start)
         )
+
+
+class TestKernelShapes:
+    """Channel counts that fill one group, several groups, and a partial
+    last group; series lengths that are not a multiple of the time tile."""
+
+    @pytest.mark.parametrize("C,n", [(1, 333), (3, 501), (17, 259), (64, 613), (130, 203)])
+    def test_bitexact_vs_vmapped_scan(self, C, n):
+        scfg = default_cfg()
+        ev = assert_bitexact_vs_vmapped_scan(
+            scfg, C, n, seed=C, bursts=((90, 110, 8.0), (150, 175, 9.0)),
+            close=CLOSE_EV + CLOSE_STATE if C == 1 else (),
+        )
+        assert np.asarray(ev.count).min() >= 1
+
+    @pytest.mark.parametrize("max_group,tile", [(4, 1), (8, 3), (64, 16), (1, 1)])
+    def test_launch_shape_does_not_change_results(self, max_group, tile):
+        scfg = default_cfg()
+        C, n = 11, 301
+        series = [make_series(n, 40 + c, ((100, 130, 8.0),)) for c in range(C)]
+        on = jnp.stack([o for o, _ in series])
+        pm = jnp.stack([p for _, p in series])
+        st0 = stream_init_batch(scfg, C)
+        _, ev_ref, thr_ref = stream_scan_fused_batch(scfg, st0, on, pm)
+        _, ev, thr = stream_scan_fused_batch(
+            scfg, st0, on, pm, max_group=max_group, tile=tile
+        )
+        np.testing.assert_array_equal(np.asarray(thr_ref), np.asarray(thr))
+        for f in StreamEvents._fields:
+            np.testing.assert_array_equal(
+                np.asarray(getattr(ev_ref, f)), np.asarray(getattr(ev, f))
+            )
+
+    @pytest.mark.parametrize("C,max_group,want", [(1, 32, 1), (3, 32, 4), (17, 32, 32), (64, 16, 16)])
+    def test_group_size(self, C, max_group, want):
+        from meteor_scatter_tpu.ops.pallas.stream_kernel import group_size
+
+        assert group_size(C, max_group) == want
+
+    def test_group_size_rejects_non_power_of_two(self):
+        from meteor_scatter_tpu.ops.pallas.stream_kernel import group_size
+
+        with pytest.raises(ValueError):
+            group_size(8, 24)
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_equals_scan():
+    """The kernel compiled for the card against the vmapped scan at the
+    station network's width (chip_smoke.py runs this check there)."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs the GPU; chip_smoke.py runs this check on the card")
+    scfg = default_cfg()
+    ev = assert_bitexact_vs_vmapped_scan(
+        scfg, 64, 3000, seed=5, bursts=((900, 930, 8.0),),
+        close=CLOSE_EV + CLOSE_STATE,
+    )
+    assert np.asarray(ev.count).min() >= 1

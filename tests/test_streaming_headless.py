@@ -80,7 +80,7 @@ class TestHeadlessFront:
 
 
 def test_preblocked_input_equals_flat():
-    """(..., n_blocks, block) pre-blocked audio (the TPU-throughput form,
+    """(..., n_blocks, block) pre-blocked audio (the throughput form,
     see models/streaming.py::_blocked) must produce bit-identical band
     series to the flat (..., S) form in both fronts."""
     import jax.numpy as jnp

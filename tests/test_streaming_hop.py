@@ -145,27 +145,35 @@ class TestHopEqualsScan:
 
 
 class TestResolveAuto:
-    """resolve_stream_auto picks by backend: CPU keeps the reference
-    formulation; TPU picks the fused kernel at every batch width (fused
-    measured fastest even at C=1 — 0.34 ms/h vs hop's 0.80,
-    tools/streaming_bench.py 2026-08-21)."""
+    """resolve_stream_auto picks by backend through meteor_scatter_tpu.platform:
+    the CPU keeps the reference formulation, the GPU takes its measured
+    defaults, any other backend (the one this program was first written
+    for included) is refused."""
 
     def test_cpu_defaults(self, monkeypatch):
         import meteor_scatter_tpu.models.streaming as S
 
         monkeypatch.setattr(S.jax, "default_backend", lambda: "cpu")
         assert S.resolve_stream_auto("auto", "auto") == ("welch", "scan")
-        assert S.resolve_stream_auto("auto", "auto", n_channels=64) == ("welch", "scan")
+
+    def test_gpu_defaults(self, monkeypatch):
+        import meteor_scatter_tpu.models.streaming as S
+        from meteor_scatter_tpu import platform
+
+        monkeypatch.setattr(S.jax, "default_backend", lambda: "gpu")
+        assert S.resolve_stream_auto("auto", "auto") == (
+            platform._DEFAULTS["gpu"]["stream_front"],
+            platform._DEFAULTS["gpu"]["stream_solver"],
+        )
 
     def test_tpu_defaults(self, monkeypatch):
         import meteor_scatter_tpu.models.streaming as S
 
         monkeypatch.setattr(S.jax, "default_backend", lambda: "tpu")
-        assert S.resolve_stream_auto("auto", "auto") == ("bins", "fused")
-        assert S.resolve_stream_auto("auto", "auto", n_channels=7) == ("bins", "fused")
-        assert S.resolve_stream_auto("auto", "auto", n_channels=64) == ("bins", "fused")
+        with pytest.raises(ValueError, match="unsupported JAX backend"):
+            S.resolve_stream_auto("auto", "auto")
         # explicit selections always pass through untouched
-        assert S.resolve_stream_auto("welch", "scan", n_channels=64) == ("welch", "scan")
+        assert S.resolve_stream_auto("welch", "scan") == ("welch", "scan")
         assert S.resolve_stream_auto("bins", "hop") == ("bins", "hop")
 
 
